@@ -1,8 +1,8 @@
 // SA-IS linear-time suffix array construction (Nong, Zhang & Chan 2009),
-// implemented from the published algorithm for the gwa-tpu index builder
+// implemented from the published algorithm for the gwa index builder
 // (SURVEY.md §2 #4; reference parity: UInt32SAIS).  The aligner's offline
 // index build is the only native-hot-loop in the reference design; on the
-// TPU rebuild it stays host-side and feeds packed tables to HBM.
+// rebuild it stays host-side and feeds packed tables to device memory.
 //
 // Exposed C ABI (ctypes):
 //   int gwa_sais_u8(const uint8_t* codes, int32_t* sa_out, int64_t m)

@@ -29,10 +29,10 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from genome_weaver_align_tpu.index import native, seedtable  # noqa: E402
-from genome_weaver_align_tpu.index.build import build_fm_index  # noqa: E402
-from genome_weaver_align_tpu.index.multipart_io import PartMeta, save_part  # noqa: E402
-from genome_weaver_align_tpu.utils.larray import check_device_indexable  # noqa: E402
+from genome_weaver_align.index import native, seedtable  # noqa: E402
+from genome_weaver_align.index.build import build_fm_index  # noqa: E402
+from genome_weaver_align.index.multipart_io import PartMeta, save_part  # noqa: E402
+from genome_weaver_align.utils.larray import check_device_indexable  # noqa: E402
 
 SEED_J = 13
 READ_LEN = 150

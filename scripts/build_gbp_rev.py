@@ -24,8 +24,8 @@ import sys
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from genome_weaver_align_tpu.index.build import build_fm_index  # noqa: E402
-from genome_weaver_align_tpu.utils import packing  # noqa: E402
+from genome_weaver_align.index.build import build_fm_index  # noqa: E402
+from genome_weaver_align.utils import packing  # noqa: E402
 
 T0 = time.time()
 

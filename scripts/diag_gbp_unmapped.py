@@ -28,12 +28,13 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(Path(__file__).resolve().parent.parent / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from genome_weaver_align.utils import compile_cache
 
-    from genome_weaver_align_tpu.index import multipart_io as mp
-    from genome_weaver_align_tpu.index.files import GenomeIndex as GI
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
+    compile_cache.enable()
+
+    from genome_weaver_align.index import multipart_io as mp
+    from genome_weaver_align.index.files import GenomeIndex as GI
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
 
     dbg = np.load(cache / "gbp_debug.npz")
     z = np.load(cache / "gbp_parts" / "reads.npz")

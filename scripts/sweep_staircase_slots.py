@@ -18,7 +18,6 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import bench  # noqa: E402
 from bench import (  # noqa: E402
     CHR20, PIPE_BATCH, SEED_J, build_or_load_index, load_seed_table,
     _run_pipeline_batches, sustained_rate,
@@ -31,14 +30,13 @@ def main():
     ap.add_argument("--batches", type=int, default=6)
     args = ap.parse_args()
 
-    import jax
+    from genome_weaver_align.utils import compile_cache
 
-    jax.config.update("jax_compilation_cache_dir", str(Path(bench.ROOT) / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    compile_cache.enable()
 
-    from genome_weaver_align_tpu.index.files import Genome, GenomeIndex
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-    from genome_weaver_align_tpu.utils import simulate
+    from genome_weaver_align.index.files import Genome, GenomeIndex
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align.utils import simulate
 
     codes, fm, rev = build_or_load_index(
         CHR20, tag="chr20rep_r8", sample_rate=8,

@@ -5,7 +5,7 @@ produced scored alignments; VERDICT r1 missing-#3)."""
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.ops import affine
+from genome_weaver_align.ops import affine
 
 MATCH, MISMATCH, OPEN, EXT = 1, 4, 6, 1
 
@@ -100,12 +100,12 @@ def test_affine_prefers_gap_over_many_mismatches():
 
 
 def test_pipeline_emits_native_as(tmp_path):
-    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-    from genome_weaver_align_tpu.utils import simulate
+    from genome_weaver_align.index.files import Genome, build_genome_index
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align.utils import simulate
 
     rng = np.random.default_rng(5)
-    from genome_weaver_align_tpu.utils.fasta import Contig
+    from genome_weaver_align.utils.fasta import Contig
 
     gi = build_genome_index(
         Genome.from_contigs([Contig("c", rng.integers(0, 4, size=20000, dtype=np.uint8))]),
@@ -137,7 +137,7 @@ def test_native_engine_bit_identical_to_numpy():
     """native/affine.cpp vs the NumPy lockstep engine: identical
     (score, start, CIGAR, NM) on a mixed stream of planted sub/indel reads,
     ragged lengths, N bases, and junk rows (every k the pipeline uses)."""
-    from genome_weaver_align_tpu.ops import affine
+    from genome_weaver_align.ops import affine
 
     if affine._load_native() is None:
         import pytest

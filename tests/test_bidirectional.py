@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models import bidirectional as bd
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models import bidirectional as bd
 
 
 def naive_count(text, pat):

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from genome_weaver_align_tpu.cli import main
-from genome_weaver_align_tpu.utils import dna
-from genome_weaver_align_tpu.utils.fasta import Contig, write_fasta
+from genome_weaver_align.cli import main
+from genome_weaver_align.utils import dna
+from genome_weaver_align.utils.fasta import Contig, write_fasta
 
 
 def test_cli_roundtrip(tmp_path):
@@ -65,9 +65,9 @@ def test_cli_paired_and_report(tmp_path):
     assert main(["index", str(fa), "-o", str(idx), "--sample-rate", "8"]) == 0
 
     # simulate pairs via the library (CLI simulate is single-end)
-    from genome_weaver_align_tpu.index.files import load_index
-    from genome_weaver_align_tpu.utils import simulate
-    from genome_weaver_align_tpu.utils.fasta import write_fastq
+    from genome_weaver_align.index.files import load_index
+    from genome_weaver_align.utils import simulate
+    from genome_weaver_align.utils.fasta import write_fastq
 
     gi = load_index(idx)
     pairs = simulate.simulate_pairs(gi.genome.codes, 20, 80, seed=3)
@@ -124,9 +124,9 @@ def test_cli_interleaved(tmp_path):
     write_fasta(fa, [Contig("c1", rng.integers(0, 4, size=20000, dtype=np.uint8))])
     idx = tmp_path / "g.npz"
     assert main(["index", str(fa), "-o", str(idx)]) == 0
-    from genome_weaver_align_tpu.index.files import load_index
-    from genome_weaver_align_tpu.utils import simulate
-    from genome_weaver_align_tpu.utils.fasta import write_fastq
+    from genome_weaver_align.index.files import load_index
+    from genome_weaver_align.utils import simulate
+    from genome_weaver_align.utils.fasta import write_fastq
 
     gi = load_index(idx)
     pairs = simulate.simulate_pairs(gi.genome.codes, 10, 80, seed=5)

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +51,7 @@ def test_verify_mode_invariance(setup):
 
 def test_mixed_length_batch(setup):
     """Non-uniform lengths take the two-pass path; hits must still be found."""
-    from genome_weaver_align_tpu.utils.fasta import Read
+    from genome_weaver_align.utils.fasta import Read
 
     gi, reads = setup
     mixed = [Read(r.name, r.codes[: 80 + (i % 3) * 7]) for i, r in enumerate(reads)]

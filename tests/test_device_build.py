@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.device_build import suffix_array_device
-from genome_weaver_align_tpu.index.sais import suffix_array_naive
+from genome_weaver_align.index.device_build import suffix_array_device
+from genome_weaver_align.index.sais import suffix_array_naive
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (2, 1), (63, 2), (1000, 3), (5000, 4)])
@@ -23,7 +23,7 @@ def test_device_sa_repetitive():
 
 
 def test_device_sa_feeds_index_build():
-    from genome_weaver_align_tpu.index.build import build_fm_index
+    from genome_weaver_align.index.build import build_fm_index
 
     codes = np.random.default_rng(9).integers(0, 4, size=3000, dtype=np.uint8)
     fm = build_fm_index(codes, sa=suffix_array_device(codes))

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models import exact
-from genome_weaver_align_tpu.ops import rank
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models import exact
+from genome_weaver_align.ops import rank
 
 
 @pytest.fixture(scope="module")

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.ops import dp, window
+from genome_weaver_align.ops import dp, window
 
 
 def rand_codes(n, seed):
@@ -110,7 +110,7 @@ def test_hamming_device():
 
 
 def test_gather_windows():
-    from genome_weaver_align_tpu.utils import packing
+    from genome_weaver_align.utils import packing
 
     codes = rand_codes(1000, 5)
     words = jnp.asarray(packing.pack(codes))
@@ -127,7 +127,7 @@ def test_traceback_banded_batch_matches_full_host():
     reads (dist <= k): same dist, start and CIGAR (M>I>D preference)."""
     import numpy as np
 
-    from genome_weaver_align_tpu.ops import dp
+    from genome_weaver_align.ops import dp
 
     rng = np.random.default_rng(42)
     k, L = 4, 80

@@ -3,10 +3,10 @@
 
 import numpy as np
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index, load_index, save_index
-from genome_weaver_align_tpu.models.pipeline import ExactAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align.index.files import Genome, build_genome_index, load_index, save_index
+from genome_weaver_align.models.pipeline import ExactAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig
 
 
 def make_index(n=20000, seed=0, contigs=2):
@@ -37,7 +37,7 @@ def test_exact_align_end_to_end(tmp_path):
 
     recs = aligner.to_sam(reads, hits)
     sam_path = tmp_path / "out.sam"
-    from genome_weaver_align_tpu.utils.sam import write_sam
+    from genome_weaver_align.utils.sam import write_sam
 
     write_sam(sam_path, aligner.sam_header(), recs)
     lines = sam_path.read_text().splitlines()
@@ -74,7 +74,7 @@ def test_unmapped_read():
     gi = make_index(n=2000, contigs=1)
     # a read absent from the genome (with high probability)
     rng = np.random.default_rng(99)
-    from genome_weaver_align_tpu.utils.fasta import Read
+    from genome_weaver_align.utils.fasta import Read
 
     r = Read("noexist", rng.integers(0, 4, size=36, dtype=np.uint8))
     aligner = ExactAligner(gi)
@@ -92,9 +92,9 @@ def test_genome_with_n_regions():
     codes = rng.integers(0, 4, size=8000, dtype=np.uint8)
     raw = codes.copy()
     raw[2000:2100] = 4  # N run
-    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu.utils.fasta import Contig, Read
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align.index.files import Genome, build_genome_index
+    from genome_weaver_align.utils.fasta import Contig, Read
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
 
     g = Genome.from_contigs([Contig("n1", raw)])
     assert g.n_mask_spans.shape == (1, 2)

@@ -4,9 +4,9 @@
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.index.sais import suffix_array, suffix_array_naive
-from genome_weaver_align_tpu.utils import dna
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.index.sais import suffix_array, suffix_array_naive
+from genome_weaver_align.utils import dna
 
 
 def rand_codes(n, seed=0):

@@ -6,10 +6,10 @@ random tests rarely hit."""
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.files import Genome, GenomeIndex
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils.fasta import Read
+from genome_weaver_align.index.files import Genome, GenomeIndex
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils.fasta import Read
 
 
 def brute_best(codes, read, k):
@@ -53,7 +53,7 @@ def test_pipeline_vs_brute_small(n, seed):
             r = (3 - r)[::-1]
         reads.append(Read(f"f{i}", r.astype(np.uint8)))
         expect.append(brute_best(codes, r, 2))
-    from genome_weaver_align_tpu.ops.dp import edit_distance_semiglobal_host
+    from genome_weaver_align.ops.dp import edit_distance_semiglobal_host
 
     hits = al.align_batch(reads)
     for r, h, e in zip(reads, hits, expect):

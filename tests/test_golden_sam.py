@@ -7,11 +7,11 @@ from pathlib import Path
 
 import numpy as np
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.models.paired import PairedAligner
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig, Read
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.models.paired import PairedAligner
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig, Read
 
 GOLDEN = Path(__file__).parent / "data" / "golden.sam"
 

@@ -4,11 +4,11 @@ index over the concatenated genome."""
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.index.multi import MultiIndexAligner, build_multi_index
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.index.multi import MultiIndexAligner, build_multi_index
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig
 
 
 def test_multi_part_matches_single():

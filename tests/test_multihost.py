@@ -4,8 +4,8 @@ global batch formation, host gather, deterministic batch streaming."""
 import numpy as np
 import jax
 
-from genome_weaver_align_tpu.parallel import mesh as pmesh
-from genome_weaver_align_tpu.parallel import multihost as mh
+from genome_weaver_align.parallel import mesh as pmesh
+from genome_weaver_align.parallel import multihost as mh
 
 
 def test_initialize_noop_single_process():

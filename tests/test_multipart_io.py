@@ -12,11 +12,11 @@ import json
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index import seedtable
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.index.files import Genome, GenomeIndex
-from genome_weaver_align_tpu.index import multipart_io as mp
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.index import seedtable
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.index.files import Genome, GenomeIndex
+from genome_weaver_align.index import multipart_io as mp
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
 
 J = 6
 L, K = 40, 2
@@ -158,7 +158,7 @@ def test_flat_matches_from_host(tmp_path):
     """The flat layout's device arrays must be byte-identical to what
     rank.from_host uploads from the npz load path (blocks fusing, LSB-first
     mark words, checkpoint cumsum) — for the forward AND reverse tables."""
-    from genome_weaver_align_tpu.ops import rank
+    from genome_weaver_align.ops import rank
 
     rng = np.random.default_rng(7)
     part_dir, parts_codes, _ = _build_parts(tmp_path, rng, n_per_part=3000)

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.ops import dp, myers
+from genome_weaver_align.ops import dp, myers
 
 
 def oracle(read, window):

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index import native
-from genome_weaver_align_tpu.index.sais import suffix_array_naive
+from genome_weaver_align.index import native
+from genome_weaver_align.index.sais import suffix_array_naive
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native toolchain unavailable"
@@ -30,8 +30,8 @@ def test_native_sais_repetitive():
 
 
 def test_native_bwt_matches_build():
-    from genome_weaver_align_tpu.index.build import build_fm_index
-    from genome_weaver_align_tpu.utils import packing
+    from genome_weaver_align.index.build import build_fm_index
+    from genome_weaver_align.utils import packing
 
     codes = np.random.default_rng(9).integers(0, 4, size=3000, dtype=np.uint8)
     sa = native.suffix_array_native(codes)
@@ -43,7 +43,7 @@ def test_native_bwt_matches_build():
 
 def test_build_uses_native_by_default():
     codes = np.random.default_rng(10).integers(0, 4, size=2000, dtype=np.uint8)
-    from genome_weaver_align_tpu.index.build import build_fm_index
+    from genome_weaver_align.index.build import build_fm_index
 
     fm = build_fm_index(codes)
     lo, hi = fm.backward_search(codes[100:130])

@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models import bidirectional as bd
-from genome_weaver_align_tpu.models import exact, one_mismatch
-from genome_weaver_align_tpu.ops import rank
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models import bidirectional as bd
+from genome_weaver_align.models import exact, one_mismatch
+from genome_weaver_align.ops import rank
 
 
 @pytest.fixture(scope="module")
@@ -92,10 +92,10 @@ def test_one_mismatch_variable_lengths(setup):
 
 
 def test_one_mismatch_aligner_end_to_end():
-    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu.models.one_mismatch import OneMismatchAligner
-    from genome_weaver_align_tpu.utils import simulate
-    from genome_weaver_align_tpu.utils.fasta import Contig
+    from genome_weaver_align.index.files import Genome, build_genome_index
+    from genome_weaver_align.models.one_mismatch import OneMismatchAligner
+    from genome_weaver_align.utils import simulate
+    from genome_weaver_align.utils.fasta import Contig
 
     rng = np.random.default_rng(19)
     gi = build_genome_index(

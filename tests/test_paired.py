@@ -4,11 +4,11 @@ mate rescue of an unmappable mate via the insert window."""
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.models.paired import PairedAligner
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig, Read
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.models.paired import PairedAligner
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig, Read
 
 
 @pytest.fixture(scope="module")
@@ -98,8 +98,8 @@ def test_paired_over_list_api_aligners(gi):
     ShardedAligner and OneMismatchAligner only expose align_batch
     (regression: align_pairs once hard-required align_arrays_submit and
     crashed for `align --paired --n-interval 2` / `--mode onemm`)."""
-    from genome_weaver_align_tpu.models.one_mismatch import OneMismatchAligner
-    from genome_weaver_align_tpu.parallel.sharded_pipeline import ShardedAligner
+    from genome_weaver_align.models.one_mismatch import OneMismatchAligner
+    from genome_weaver_align.parallel.sharded_pipeline import ShardedAligner
 
     sims = simulate.simulate_pairs(
         gi.genome.codes, 12, 80, seed=9, sub_rate=0.005, max_subs=1

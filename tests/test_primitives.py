@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.utils import dna, packing
-from genome_weaver_align_tpu.utils.bitvector import BitVector
+from genome_weaver_align.utils import dna, packing
+from genome_weaver_align.utils.bitvector import BitVector
 
 
 def test_encode_decode_roundtrip():
@@ -66,8 +66,8 @@ def test_bitvector_rank(n):
 def test_fastq_array_batches_roundtrip(tmp_path):
     """Chunked vectorised FASTQ parse == per-read parse, uniform and ragged
     lengths, across chunk boundaries (ADVICE r1: bounded-memory array path)."""
-    from genome_weaver_align_tpu.utils import dna
-    from genome_weaver_align_tpu.utils.fasta import (
+    from genome_weaver_align.utils import dna
+    from genome_weaver_align.utils.fasta import (
         Read,
         iter_fastq_array_batches,
         read_fastq_arrays,

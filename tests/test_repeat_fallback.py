@@ -12,10 +12,10 @@ through the staircase bidirectional narrowing, which finds the unique copy.
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.index.seedtable import build_seed_table
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.index.seedtable import build_seed_table
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils.fasta import Contig
 
 
 SEED_J = 8
@@ -73,7 +73,7 @@ def _align(gi, seed_tab, reads, rev):
 
 
 def Genome_index_no_rev(gi):
-    from genome_weaver_align_tpu.index.files import GenomeIndex
+    from genome_weaver_align.index.files import GenomeIndex
 
     return GenomeIndex(gi.genome, gi.fwd, None)
 

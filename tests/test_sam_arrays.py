@@ -5,13 +5,13 @@ path, so its bytes must be pinned to the object path's)."""
 
 import numpy as np
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.models.pipeline import (
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.models.pipeline import (
     SuffixFilterAligner,
     hits_from_arrays,
 )
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Read
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Read
 
 
 def _setup(k=2, n_reads=64, L=80, with_indels=False, seed=7):
@@ -40,7 +40,7 @@ def _setup(k=2, n_reads=64, L=80, with_indels=False, seed=7):
 
 
 def Contig_g(name, codes):
-    from genome_weaver_align_tpu.utils.fasta import Contig
+    from genome_weaver_align.utils.fasta import Contig
 
     return Contig(name, codes)
 

@@ -4,12 +4,12 @@ end-to-end identity with the FM candidate path (SURVEY.md §4 oracle pattern).""
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index import seedtable
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align.index import seedtable
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig
 
 
 def test_rolling_kmers_oracle():
@@ -39,7 +39,7 @@ def test_seed_table_buckets_are_sorted_positions():
 def test_seed_table_native_equals_numpy():
     """C++ counting-sort builder (native/seedtable.cpp) vs the NumPy argsort
     oracle: identical offsets AND positions (stable, position-ascending)."""
-    from genome_weaver_align_tpu.index import native
+    from genome_weaver_align.index import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -57,8 +57,8 @@ def test_seed_candidates_superset_of_pigeonhole():
     seed path too (before the max_cands cap)."""
     import jax.numpy as jnp
 
-    from genome_weaver_align_tpu.models import suffix_filter
-    from genome_weaver_align_tpu.ops import rank
+    from genome_weaver_align.models import suffix_filter
+    from genome_weaver_align.ops import rank
 
     rng = np.random.default_rng(2)
     codes = rng.integers(0, 4, size=20000, dtype=np.uint8)
@@ -135,7 +135,7 @@ def test_full_sa_locate_identity(gi):
     """Full-SA locate returns exactly the LF-walk locate's positions."""
     import jax.numpy as jnp
 
-    from genome_weaver_align_tpu.ops import rank
+    from genome_weaver_align.ops import rank
 
     fm_fast = rank.from_host(gi.fwd)
     assert fm_fast.full_sa is not None
@@ -151,7 +151,7 @@ def test_full_sa_locate_identity(gi):
 
 
 def test_full_sa_exact_aligner_identity(gi):
-    from genome_weaver_align_tpu.models.pipeline import ExactAligner
+    from genome_weaver_align.models.pipeline import ExactAligner
 
     sims = simulate.simulate_reads(
         gi.genome.codes, n_reads=50, read_len=36, seed=12, sub_rate=0.0
@@ -169,8 +169,8 @@ def test_compact_verify_identity(gi):
     best on the same candidates (budget not exceeded)."""
     import jax.numpy as jnp
 
-    from genome_weaver_align_tpu.models import suffix_filter
-    from genome_weaver_align_tpu.ops import rank
+    from genome_weaver_align.models import suffix_filter
+    from genome_weaver_align.ops import rank
 
     dfm = rank.from_host(gi.fwd)
     text_words = jnp.asarray(gi.fwd.text_words)
@@ -203,7 +203,7 @@ def test_compact_verify_budget_overflow_flag(gi):
     """Exceeding the pooled budget flags overflow (never silent)."""
     import jax.numpy as jnp
 
-    from genome_weaver_align_tpu.models import suffix_filter
+    from genome_weaver_align.models import suffix_filter
 
     text_words = jnp.asarray(gi.fwd.text_words)
     B, C = 8, 8

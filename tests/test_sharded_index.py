@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models import exact
-from genome_weaver_align_tpu.ops import rank
-from genome_weaver_align_tpu.parallel import mesh as pmesh
-from genome_weaver_align_tpu.parallel import sharded_index as si
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models import exact
+from genome_weaver_align.ops import rank
+from genome_weaver_align.parallel import mesh as pmesh
+from genome_weaver_align.parallel import sharded_index as si
 
 
 @pytest.fixture(scope="module")
@@ -20,8 +20,13 @@ def setup():
     return codes, fm
 
 
-@pytest.mark.parametrize("n_data,n_interval", [(2, 4), (1, 8), (4, 2)])
-def test_sharded_exact_search_matches_single(setup, n_data, n_interval):
+@pytest.mark.parametrize("microbatch", [1, 2])
+@pytest.mark.parametrize(
+    "n_data,n_interval", [(1, 2), (2, 2), (1, 4), (4, 2), (2, 4), (1, 8)]
+)
+def test_sharded_exact_search_matches_single(setup, n_data, n_interval, microbatch):
+    """psum-merged search over every mesh shape, with and without the
+    interleaved microbatch chunks, equals the single-device search."""
     codes, fm = setup
     m = pmesh.make_mesh(n_data=n_data, n_interval=n_interval)
     sh = si.shard_fm_index(fm, n_interval)
@@ -36,7 +41,8 @@ def test_sharded_exact_search_matches_single(setup, n_data, n_interval):
         reads[i] = codes[p : p + L]
 
     fn = si.make_sharded_exact_search(
-        m, pmesh.INTERVAL_AXIS, pmesh.DATA_AXIS, max_len=L, like=sh
+        m, pmesh.INTERVAL_AXIS, pmesh.DATA_AXIS, max_len=L, like=sh,
+        microbatch=microbatch,
     )
     r, l, _ = pmesh.shard_reads(m, reads, lengths)
     lo, hi, pos = fn(sh, r, l)

@@ -4,15 +4,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models import suffix_filter as sf
-from genome_weaver_align_tpu.ops import rank
-from genome_weaver_align_tpu.parallel import mesh as pmesh
-from genome_weaver_align_tpu.parallel import sharded_index as si
-from genome_weaver_align_tpu.parallel import sharded_pipeline as sp
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models import suffix_filter as sf
+from genome_weaver_align.ops import rank
+from genome_weaver_align.parallel import mesh as pmesh
+from genome_weaver_align.parallel import sharded_index as si
+from genome_weaver_align.parallel import sharded_pipeline as sp
 
 
-@pytest.mark.parametrize("n_data,n_interval", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("n_data,n_interval", [(1, 2), (2, 2), (1, 4), (4, 2), (2, 4)])
 def test_sharded_pipeline_matches_single(n_data, n_interval):
     rng = np.random.default_rng(71)
     codes = rng.integers(0, 4, size=20000, dtype=np.uint8)
@@ -68,11 +68,11 @@ def test_sharded_pipeline_matches_single(n_data, n_interval):
 
 
 def test_sharded_aligner_matches_single_device():
-    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-    from genome_weaver_align_tpu.parallel.sharded_pipeline import ShardedAligner
-    from genome_weaver_align_tpu.utils import simulate
-    from genome_weaver_align_tpu.utils.fasta import Contig
+    from genome_weaver_align.index.files import Genome, build_genome_index
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align.parallel.sharded_pipeline import ShardedAligner
+    from genome_weaver_align.utils import simulate
+    from genome_weaver_align.utils.fasta import Contig
 
     rng = np.random.default_rng(31)
     gi = build_genome_index(
@@ -93,11 +93,11 @@ def test_sharded_aligner_matches_single_device():
             assert (a.pos, a.strand, a.dist, a.cigar) == (b.pos, b.strand, b.dist, b.cigar)
 
 
-@pytest.mark.parametrize("n_data,n_interval", [(2, 4), (4, 2)])
+@pytest.mark.parametrize("n_data,n_interval", [(1, 2), (2, 2), (1, 4), (4, 2), (2, 4)])
 def test_sharded_seed_pipeline_matches_single(n_data, n_interval):
     """Seed-sharded align (k-mer-range shards, one candidate psum) ==
     single-device seed path best hits."""
-    from genome_weaver_align_tpu.index import seedtable
+    from genome_weaver_align.index import seedtable
 
     rng = np.random.default_rng(91)
     codes = rng.integers(0, 4, size=30000, dtype=np.uint8)
@@ -146,11 +146,11 @@ def test_sharded_seed_pipeline_matches_single(n_data, n_interval):
 
 def test_sharded_aligner_seed_sam_identity():
     """ShardedAligner with a seed table == single-device seeded aligner SAM."""
-    from genome_weaver_align_tpu.index import seedtable
-    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-    from genome_weaver_align_tpu.utils import simulate
-    from genome_weaver_align_tpu.utils.fasta import Contig
+    from genome_weaver_align.index import seedtable
+    from genome_weaver_align.index.files import Genome, build_genome_index
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align.utils import simulate
+    from genome_weaver_align.utils.fasta import Contig
 
     rng = np.random.default_rng(13)
     genome = Genome.from_contigs(
@@ -180,10 +180,10 @@ def test_sharded_aligner_mixed_length_seed_gating():
     (ADVICE r1 high: batch-max gating silently unmapped short reads whose
     last-j-mers crossed piece boundaries), and all-short batches must fall
     back to the FM shards instead of crashing."""
-    from genome_weaver_align_tpu.index import seedtable
-    from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-    from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-    from genome_weaver_align_tpu.utils.fasta import Contig, Read
+    from genome_weaver_align.index import seedtable
+    from genome_weaver_align.index.files import Genome, build_genome_index
+    from genome_weaver_align.models.pipeline import SuffixFilterAligner
+    from genome_weaver_align.utils.fasta import Contig, Read
 
     rng = np.random.default_rng(77)
     genome = Genome.from_contigs(

@@ -5,11 +5,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from genome_weaver_align_tpu.index.build import build_fm_index
-from genome_weaver_align_tpu.models import bidirectional as bd
-from genome_weaver_align_tpu.models import staircase, suffix_filter
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.models.suffix_filter import NO_CAND
+from genome_weaver_align.index.build import build_fm_index
+from genome_weaver_align.models import bidirectional as bd
+from genome_weaver_align.models import staircase, suffix_filter
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.models.suffix_filter import NO_CAND
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +55,7 @@ def test_staircase_recall(setup, k):
 def test_staircase_prunes_vs_pigeonhole(setup):
     codes, fwd, rev, bi = setup
     rng = np.random.default_rng(55)
-    from genome_weaver_align_tpu.ops import rank
+    from genome_weaver_align.ops import rank
 
     dfm = rank.from_host(fwd)
     k = 2
@@ -80,8 +80,8 @@ def test_staircase_prunes_vs_pigeonhole(setup):
 
 def test_aligner_staircase_mode(setup):
     codes, fwd, rev, bi = setup
-    from genome_weaver_align_tpu.index.files import Genome, GenomeIndex
-    from genome_weaver_align_tpu.utils import simulate
+    from genome_weaver_align.index.files import Genome, GenomeIndex
+    from genome_weaver_align.utils import simulate
 
     genome = Genome(
         names=["chrS"],

@@ -6,10 +6,10 @@ import re
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.files import Genome, build_genome_index
-from genome_weaver_align_tpu.models.pipeline import SuffixFilterAligner
-from genome_weaver_align_tpu.utils import simulate
-from genome_weaver_align_tpu.utils.fasta import Contig
+from genome_weaver_align.index.files import Genome, build_genome_index
+from genome_weaver_align.models.pipeline import SuffixFilterAligner
+from genome_weaver_align.utils import simulate
+from genome_weaver_align.utils.fasta import Contig
 
 
 @pytest.fixture(scope="module")
@@ -86,7 +86,7 @@ def test_sam_output(gi, tmp_path):
 
 
 def test_aligner_with_kmer_table(gi):
-    from genome_weaver_align_tpu.index.kmer import build_kmer_table
+    from genome_weaver_align.index.kmer import build_kmer_table
 
     lo, hi = build_kmer_table(gi.fwd, 6)
     sims = simulate.simulate_reads(
@@ -105,7 +105,7 @@ def test_aligner_with_kmer_table(gi):
 
 def test_unmappable_read(gi):
     rng = np.random.default_rng(44)
-    from genome_weaver_align_tpu.utils.fasta import Read
+    from genome_weaver_align.utils.fasta import Read
 
     r = Read("junk", rng.integers(0, 4, size=100, dtype=np.uint8))
     al = SuffixFilterAligner(gi, k=2)
@@ -119,7 +119,7 @@ def test_overflow_fallback_repetitive_genome():
     A tandem-repeat genome makes every piece hit dozens of loci, so tiny
     max_hits/verify_slack budgets overflow; with the fallback the unique
     suffix still maps each read to its true locus."""
-    from genome_weaver_align_tpu.utils.fasta import Read
+    from genome_weaver_align.utils.fasta import Read
 
     rng = np.random.default_rng(23)
     unit = rng.integers(0, 4, size=200, dtype=np.uint8)

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from genome_weaver_align_tpu.index.wavelet import WaveletRank
+from genome_weaver_align.index.wavelet import WaveletRank
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (63, 1), (128, 2), (1000, 3), (5000, 4)])
@@ -18,8 +18,8 @@ def test_wavelet_rank_vs_naive(n, seed):
 
 
 def test_wavelet_matches_occ_table():
-    from genome_weaver_align_tpu.index.build import build_fm_index
-    from genome_weaver_align_tpu.utils import packing
+    from genome_weaver_align.index.build import build_fm_index
+    from genome_weaver_align.utils import packing
 
     codes = np.random.default_rng(9).integers(0, 4, size=3000, dtype=np.uint8)
     fm = build_fm_index(codes)
@@ -35,7 +35,7 @@ def test_device_wavelet_rank_matches_host():
     per-lane codes, including i=0 and i=n edges."""
     import jax.numpy as jnp
 
-    from genome_weaver_align_tpu.index import wavelet
+    from genome_weaver_align.index import wavelet
 
     rng = np.random.default_rng(11)
     codes = rng.integers(0, 4, size=4097, dtype=np.uint8)
@@ -60,11 +60,11 @@ def test_exact_search_wavelet_bit_identical_to_fused():
     (same (lo, hi) for hit and miss reads)."""
     import jax.numpy as jnp
 
-    from genome_weaver_align_tpu.index import wavelet
-    from genome_weaver_align_tpu.index.build import build_fm_index
-    from genome_weaver_align_tpu.models import exact
-    from genome_weaver_align_tpu.ops import rank
-    from genome_weaver_align_tpu.utils import packing
+    from genome_weaver_align.index import wavelet
+    from genome_weaver_align.index.build import build_fm_index
+    from genome_weaver_align.models import exact
+    from genome_weaver_align.ops import rank
+    from genome_weaver_align.utils import packing
 
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, size=5000, dtype=np.uint8)
